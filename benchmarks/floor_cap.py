@@ -48,7 +48,7 @@ def main() -> int:
     data, _ = synth_logistic(jax.random.key(2000), G=1000, n=50, p=4)
     model = make_hier_logistic(data, tau_prior="invgamma")
     cfg = SamplerConfig(
-        kernel=KernelConfig(algorithm=args.algorithm, fused_accept=True),
+        kernel=KernelConfig(algorithm=args.algorithm),
         run=RunConfig(
             chains=args.chains, warmup=args.warmup, draws=args.draws,
             seed=0, segment_size=4096,

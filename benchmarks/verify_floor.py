@@ -20,7 +20,7 @@
    this computes BOTH and reports the worst-case per-scalar delta.
 
     /opt/venv/bin/python -m benchmarks.verify_floor [--preset judged]
-        [--sample-groups 64] [--chains N] [--out benchmarks/results]
+        [--sample-groups 64] [--chains N] [--out results]
 
 Defaults run the exact judged configuration (preset 'judged' ==
 bench.py); `--preset mala-100k` verifies config 5's floor the same way.
@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 
@@ -47,7 +46,7 @@ def main() -> int:
     ap.add_argument("--warmup", type=int)
     ap.add_argument("--draws", type=int)
     ap.add_argument("--scale", type=float, default=1.0)
-    ap.add_argument("--out", default="benchmarks/results")
+    ap.add_argument("--out", default="results")
     args = ap.parse_args()
 
     import dataclasses
@@ -254,10 +253,9 @@ def main() -> int:
     print(json.dumps(result, indent=2))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        git = subprocess.run(
-            ["git", "rev-parse", "--short", "HEAD"],
-            capture_output=True, text=True,
-        ).stdout.strip() or "nogit"
+        from benchmarks.run import git_revision
+
+        git = git_revision() or "nogit"
         ts = time.strftime("%Y%m%d_%H%M%S")
         path = os.path.join(
             args.out, f"verify-floor-{args.preset}_{git}_{ts}.json"

@@ -1,17 +1,18 @@
-"""nestmc: TPU-native MCMC for nested (hierarchical) data.
+"""nestmc: batched MCMC for nested (hierarchical) data in JAX.
 
 A ground-up re-design of the capability surface of the reference repo
 ``tkngch/MCMC-for-Nested-Data`` (hierarchical Bayesian models fitted by
 Metropolis-Hastings-within-Gibbs to nested data: observations nested within
-groups/subjects) for TPUs:
+groups/subjects) for accelerators (NVIDIA GPUs):
 
 - the per-chain sampling loop is a jit-compiled ``lax.scan``;
 - chains are a batch axis (vmapped/batched), sharded over the device mesh;
 - a Gibbs sweep over group-level parameters is ONE batched kernel over the
   ``chains x groups`` lattice (groups are conditionally independent given the
   population-level parameters), not a Python loop;
-- the hot log-likelihood reductions over observations are fused Pallas TPU
-  kernels with jnp reference fallbacks;
+- the hot log-likelihood reductions over observations run as one fused
+  GPU kernel (Pallas, Triton route) on a GPU and as the jnp reference
+  elsewhere (nestmc/ops/dispatch.py);
 - adaptation, acceptance bookkeeping and convergence diagnostics
   (split R-hat, FFT-based ESS) run on device with no host round-trips.
 

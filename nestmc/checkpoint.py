@@ -4,8 +4,8 @@ The entire sampler state is one pytree (positions, proposal scales,
 preconditioner moments, acceptance counters, RNG key, sweep counter), so a
 checkpoint is "flatten the carry to npz". A resumed run continues bitwise-
 identically to an uninterrupted one: the RNG is counter-based and keyed from
-the carry, not from host state. Restart-based recovery is the idiomatic TPU
-failure-handling model (no elastic rescaling; chain count is fixed per run).
+the carry, not from host state. Restart-based recovery is the idiomatic
+accelerator batch-job failure-handling model (no elastic rescaling; chain count is fixed per run).
 
 Format: <dir>/carry_<tag>.npz (leaves in tree-flatten order) +
 <dir>/meta_<tag>.json (config + phase + leaf count for validation).

@@ -22,7 +22,7 @@ import jax
 
 def _build_parser():
     p = argparse.ArgumentParser(
-        prog="nestmc", description="TPU-native MCMC for nested data"
+        prog="nestmc", description="Batched MCMC for nested data in JAX"
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -125,6 +125,9 @@ def _apply_overrides(cfg, args):
 
 
 def cmd_run(args) -> int:
+    from nestmc.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     if args.debug_nans:
         jax.config.update("jax_debug_nans", True)
     if args.enable_checks:
@@ -254,6 +257,8 @@ def cmd_run(args) -> int:
               + json.dumps({k: round(v, 2)
                             for k, v in post.timings.items()}))
     else:
+        from nestmc.utils.device import card_info, device_summary
+
         n_chips = max(
             cfg.sharding.chain_shards * cfg.sharding.group_shards, 1
         )
@@ -272,8 +277,8 @@ def cmd_run(args) -> int:
             "worst_rhat": post.worst_rhat(),
             "sample_s": sample_s,
             "timings": post.timings,
-            "backend": jax.default_backend(),
-            "n_devices": jax.device_count(),
+            "device": device_summary(),
+            "card": card_info(),
             "config": post.config,
         }, default=str))
     return 0

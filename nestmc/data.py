@@ -1,8 +1,8 @@
 """Nested-data containers (L2 data layer).
 
 The reference stores nested observations (obs within groups/subjects) as
-in-memory per-group structures and iterates them in loops; on TPU that becomes
-static-shaped arrays the compiler can tile:
+in-memory per-group structures and iterates them in loops; on an accelerator
+that becomes static-shaped arrays the compiler can tile:
 
 - **Padded** form: ``(G, max_n, ...)`` arrays plus a ``(G, max_n)`` validity
   mask — one batched kernel over the full ``chains x groups x obs`` lattice.

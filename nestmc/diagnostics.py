@@ -187,12 +187,10 @@ def ess_tail(draws, prob: float = 0.05):
 # construction. Every place the <1.01 gate is quoted states which statistic
 # it used (`rhat_coverage: "all"` artifacts gate on the classic statistic
 # for uncollected params AND the rank-normalized one for collected params;
-# bench.py's worst_rhat is the max of both). Measured gap at the judged
-# shape (benchmarks/verify_floor.py, real v5e, 2026-08-19, artifact
-# verify-floor-judged_0e26521_221136): worst per-scalar |classic -
-# ranknorm| = 3.05e-5 over 264 collected scalars — four orders of
-# magnitude inside the 0.01 gate margin on near-Gaussian posteriors like
-# these. BASELINE.md "Floor coverage + R-hat statistic conventions".
+# bench.py's worst_rhat is the max of both). benchmarks/verify_floor.py
+# measures the gap |classic - ranknorm| per collected scalar; on
+# near-Gaussian posteriors like these it sits orders of magnitude inside
+# the 0.01 gate margin.
 
 def streaming_rhat_init(position: dict) -> dict:
     """Zero Welford accumulators for every leaf of a position pytree.

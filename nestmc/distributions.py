@@ -3,7 +3,7 @@
 Pure ``jnp`` functions, dtype-polymorphic, broadcasting over arbitrary batch
 shapes. These are the scalar building blocks for model log-densities; the hot
 likelihood reductions over observations live in :mod:`nestmc.ops` (jnp
-reference paths) and :mod:`nestmc.ops.pallas` (fused TPU kernels).
+reference paths and the fused GPU kernel).
 
 Capability parity: the reference implements log-pdfs for the distributions its
 hierarchical models need (normal likelihoods/priors, Bernoulli and Poisson

@@ -2,8 +2,8 @@
 
 Everything here is shape-static and jit-traceable; the block loop inside a
 sweep unrolls at trace time (2-5 blocks). The unit axis of a grouped block is
-updated for ALL units and ALL chains in one batched accept/reject — the TPU
-replacement for the reference's per-group loop.
+updated for ALL units and ALL chains in one batched accept/reject — the
+batched replacement for the reference's per-group loop.
 """
 
 from nestmc.kernels.gibbs import make_sweep

@@ -68,23 +68,17 @@ def joint_move_target(model: ModelSpec, mname: str,
 
 
 def rhat_fold_names(model: ModelSpec, cfg: SamplerConfig) -> tuple:
-    """Blocks whose streaming-R-hat Welford update the sweep can fold —
-    any non-Gibbs block whose resolved fused update hook accepts an
-    ``rhat_fold`` kwarg (the hook folds in-kernel when the fused path is
-    live, and the sweep folds with the jnp reference otherwise, so the
-    engine may rely on the fold happening either way).
+    """Blocks whose streaming-R-hat Welford update is folded INSIDE the
+    sweep (with the block's pre-update value, i.e. the previous retained
+    draw) instead of in a separate pass after it: the non-Gibbs blocks
+    that run a gradient kernel (MALA, or Newton-MH through the model's
+    analytic hooks) off a carried likelihood cache — the large group
+    blocks of the built-in models.
 
-    Only applies at ``full_rhat_thin == 1``. With thinning the fold must
-    be cond-gated per sweep, and the cond materializes fresh output
-    buffers for the O(params x chains) accumulators on EVERY sweep —
-    measured at config-5 scale (G=100k, C=512, thin=4): cond-gated fold
-    55.8k ESS/s/chip vs the post-sweep cond-gated jnp update's 67.0k
-    (the jnp path's cond carries the accumulators once per thinned draw
-    only). At thin=1 the fold is a pure win (8.23M vs 7.61M judged;
-    61.6k vs 53.1k at G=100k) because it rides operands the step kernel
-    reads anyway."""
-    import inspect
-
+    Only at ``full_rhat_thin == 1``: with thinning the fold would have to
+    be cond-gated per sweep, which re-materializes the O(params x chains)
+    accumulators on every sweep, while the post-sweep path gates them once
+    per thinned draw."""
     if cfg.run.full_rhat_thin > 1:
         return ()
     out = []
@@ -94,14 +88,9 @@ def rhat_fold_names(model: ModelSpec, cfg: SamplerConfig) -> tuple:
         algorithm = b.algorithm or cfg.kernel.algorithm
         if algorithm == "newton" and b.name not in model.cond_cached_newton:
             algorithm = "mala"
-        table = {
-            "rwmh": model.fused_updates,
-            "mala": model.fused_updates_mala,
-            "newton": model.fused_updates_newton,
-        }[algorithm]
-        hook = table.get(b.name)
-        if hook is not None and (
-            "rhat_fold" in inspect.signature(hook).parameters
+        if (
+            (algorithm == "mala" and b.name in model.cond_cached_grad)
+            or (algorithm == "newton" and b.name in model.cond_cached_newton)
         ):
             out.append(b.name)
     return tuple(out)
@@ -133,20 +122,13 @@ def make_sweep(model: ModelSpec, cfg: SamplerConfig):
         mname: "frozen" in inspect.signature(move).parameters
         for mname, move in model.joint_moves.items()
     }
-    _hook_takes_fold = {
-        name: "rhat_fold" in inspect.signature(hook).parameters
-        for table in (model.fused_updates, model.fused_updates_mala,
-                      model.fused_updates_newton)
-        for name, hook in table.items()
-    }
 
     def sweep(state: KernelState, data, adapt: bool, rhat_fold=None):
         """rhat_fold: optional {block: (mean, m2, scalars)} kernel-layout
         streaming-R-hat accumulators (diagnostics.fold_rhat_*) to fold
         with each block's PRE-update value (= the previous retained
         draw); when given the return becomes (state, {block: (mean',
-        m2')}). Folded in-kernel by fused hooks that support it, by the
-        jnp reference otherwise."""
+        m2')})."""
         fold_out = {}
         return_state = _sweep(state, data, adapt, rhat_fold or {}, fold_out)
         if rhat_fold is None:
@@ -191,60 +173,27 @@ def make_sweep(model: ModelSpec, cfg: SamplerConfig):
                 # log_tau MH block in an otherwise-Newton model.
                 algorithm = "mala"
             pstd = precond_std(precond[name], cfg.kernel)
-            fused_table = {
-                "rwmh": model.fused_updates,
-                "mala": model.fused_updates_mala,
-                "newton": model.fused_updates_newton,
-            }[algorithm]
-            use_fused = (
-                cfg.kernel.fused_accept
-                and (cfg.kernel.fused_accept_warmup or not adapt)
-                and name in fused_table
-                and pstd is None
-                # interpret mode stubs the TPU core PRNG with zeros
-                and jax.default_backend() == "tpu"
-            )
             update = _UPDATES[algorithm]
 
             fold_args = rhat_fold.get(name)
-            if fold_args is not None and not (
-                use_fused and _hook_takes_fold.get(name, False)
-            ):
-                # no in-kernel path this trace: fold the pre-update value
-                # with the jnp reference so the engine's accumulators
-                # advance identically either way
+            if fold_args is not None:
                 from nestmc.diagnostics import fold_rhat_update
 
                 fold_out[name] = fold_rhat_update(
                     fold_args[0], fold_args[1],
                     jnp.moveaxis(position[name], 0, -1), fold_args[2],
                 )
-                fold_args = None
             alphas = []
             for r in range(max(1, block.repeats)):
                 kr = jax.random.fold_in(kb, r)
                 kw = (
                     {"frozen": frozen} if algorithm == "newton" else {}
                 )
-                if use_fused:
-                    if fold_args is not None and r == 0:
-                        out = fused_table[name](
-                            kr, position, cache, log_scale[name], data,
-                            rhat_fold=fold_args, **kw
-                        )
-                        new_value, new_cache, alpha = out[:3]
-                        fold_out[name] = out[3]
-                    else:
-                        new_value, new_cache, alpha = fused_table[name](
-                            kr, position, cache, log_scale[name], data,
-                            **kw
-                        )
-                else:
-                    new_value, alpha, new_cache = update(
-                        kr, block, model, position,
-                        log_scale[name], pstd, data, cache=cache.get(name),
-                        **kw,
-                    )
+                new_value, alpha, new_cache = update(
+                    kr, block, model, position,
+                    log_scale[name], pstd, data, cache=cache.get(name),
+                    **kw,
+                )
                 position[name] = new_value
                 cache[name] = new_cache
                 alphas.append(alpha)

@@ -11,8 +11,8 @@ conjugate linear-Gaussian model). For the log-concave near-Gaussian
 conditionals of nested GLMMs (logistic / Poisson group blocks at n >= 10
 obs per group) acceptance stays near 1 and successive draws are nearly
 independent — this is what lifts the judged config's min-ESS floor, which
-BASELINE.md round 3 measured to be structurally capped by beta's OWN mixing
-rate under MALA (ESS(log_tau) = 1.05 x ESS of its sufficient statistic).
+is structurally capped by beta's OWN mixing rate under MALA
+(ESS(log_tau) = 1.05 x ESS of its sufficient statistic, DESIGN.md §3b).
 
 Cost per update: ONE fused obs pass (value+grad+packed-Hessian — the
 Hessian adds p(p+1)/2 multiply-accumulates per obs to the MALA pass and

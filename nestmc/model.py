@@ -5,7 +5,7 @@ plus a dispatcher that evaluates, for any block, the part of the joint
 log-density that depends on that block ("conditional log-density up to a
 constant").
 
-The TPU-first design decision: a block with ``units = U > 0`` declares that
+The central design decision: a block with ``units = U > 0`` declares that
 its leading axis indexes U *conditionally independent* units (groups,
 subjects) given the rest of the state. Its conditional log-density returns a
 ``(chains, U)`` array and the MH accept/reject is made **per unit, for all
@@ -14,8 +14,8 @@ reference's per-group Python loop into a single ``chains x groups`` lattice
 update (BASELINE.json:5).
 
 Batching convention: every state leaf carries a leading ``chains`` axis.
-Built-in models are written chain-batched natively so the hot likelihood can
-hit the MXU as a (chains, p) x (p, obs) matmul per group tile; custom models
+Built-in models are written chain-batched natively so the hot likelihood
+runs as one pass over the (chains, groups, obs) lattice; custom models
 written unbatched can be lifted with :func:`vmap_chains`.
 """
 
@@ -95,12 +95,11 @@ class ModelSpec:
       sample_data(key, state, data) -> Data: simulate responses given
         parameters of chain 0 (for Geweke / SBC); optional.
       cond_value_and_grad(block_name, value, state, data) -> ((C,U), value-
-        shaped grad): optional fused log-density+gradient (Pallas) for MALA;
+        shaped grad): optional fused log-density+gradient for MALA;
         when absent the MALA kernel differentiates cond_logdensity with
         ``jax.vjp``.
-      loglik_impls: named fast implementations of the hot likelihood term,
-        e.g. {"pallas": fn}; the kernel config selects one, the default jnp
-        path is always available inside cond_logdensity.
+      loglik_impls: {"selected": name} of the obs-pass implementation the
+        model chose at construction (ops/dispatch.py), for provenance.
       derived: {name: fn(position) -> (C, ...)} deterministic quantities
         computed from the state at draw-collection time (e.g. the centered
         theta = mu + tau * z of a non-centered parameterization). Collectable
@@ -166,20 +165,6 @@ class ModelSpec:
     # cond_cached_grad block runs MALA so the carried gradient cache the
     # move keys its drift off is live — and 0.234 otherwise.
     joint_move_target_accept: dict = dataclasses.field(default_factory=dict)
-    # {block_name: fn(key, position, cache, log_scale, data) ->
-    #  (new_value, new_cache, alpha)} single-kernel fused RW-MH updates
-    # (propose+lik+accept in one Pallas pass); engaged only when
-    # KernelConfig.fused_accept is set and the block runs plain RW-MH.
-    fused_updates: dict = dataclasses.field(default_factory=dict)
-    # MALA analog: {block_name: fn(key, position, cache, log_scale, data)
-    # -> (new_value, {'v','g'} cache, alpha)} — the whole Langevin
-    # propose+logp+grad+correct+accept+select as one Pallas pass; engaged
-    # when KernelConfig.fused_accept is set, the block runs MALA, and no
-    # preconditioner is active.
-    fused_updates_mala: dict = dataclasses.field(default_factory=dict)
-    # Newton-MH analog of fused_updates_mala (kernels/newton.py); engaged
-    # when KernelConfig.fused_accept is set and the block runs 'newton'.
-    fused_updates_newton: dict = dataclasses.field(default_factory=dict)
     # Newton-MH analog of cond_cached_grad: {block_name: (self_vgh,
     # rest_vgh)} where self_vgh(value, data) -> ((C,U) logp, value-shaped
     # grad, (C,U,T) packed negative Hessian, T = p(p+1)/2 in the
@@ -215,7 +200,7 @@ def vmap_chains(spec: ModelSpec) -> ModelSpec:
     chain-batched convention via ``jax.vmap``.
 
     Convenience for user models; built-ins are natively batched (faster hot
-    path: the chain axis reaches the Pallas/matmul kernels explicitly).
+    path: the chain axis reaches the obs-pass kernels explicitly).
     """
 
     def cond(name, value, state, data):

@@ -10,17 +10,13 @@ Families:
                log_sigma that ENTERS the likelihood (exercises the
                data-dependent population-block path; no likelihood cache).
   'binomial':  y successes of data.extra['trials'] trials, logit link.
-               TPU path: delegates to the hier_logistic fused-kernel stack
-               via exact data reweighting (_make_logistic_delegate).
+               Delegates to models.make_hier_logistic via exact data
+               reweighting (_make_logistic_delegate), which brings its
+               joint (mu, tau) interweave moves and its obs pass.
   'bernoulli': special case of binomial with 1 trial; delegates straight
-               to models.make_hier_logistic (same model), so it carries
-               the full Pallas/fused surface.
+               to models.make_hier_logistic (same model).
   'poisson':   y ~ Poisson(exp(eta)) — 2-level counts (the 3-level variant
                with its conjugate draws is models.make_nested_poisson).
-               TPU path: runs the nested_poisson fused single-kernel
-               RW/MALA/Newton steps directly (the 2-level model is the
-               subject block with prior mean mu; ops/pallas/
-               poisson_accept.py).
   'negbin':    y ~ NegBin(mean=exp(eta), concentration r) — overdispersed
                counts; r sampled as a population block log_r that enters
                the likelihood (gamma-Poisson mixture parameterization).
@@ -58,7 +54,7 @@ def make_hier_glm(
     tau_prior: str = "halfnormal",
     tau_ig_shape: float = 2.0,
     tau_ig_scale: float = 0.5,
-    fused: bool = True,
+    delegate: bool = True,
 ) -> ModelSpec:
     """tau_prior: 'halfnormal' (per-coordinate MH on log tau) or
     'invgamma' (tau^2 ~ InvGamma -> EXACT conjugate Gibbs draw given
@@ -67,15 +63,14 @@ def make_hier_glm(
     models/hier_logistic.py gibbs_log_tau, where it measured +33%%
     min-ESS/s on the judged config).
 
-    fused (default True): route the bernoulli/binomial families through
-    the hier_logistic Pallas/fused-kernel stack (VERDICT r4 item 8) —
-    bernoulli is literally the same model; binomial reduces to it EXACTLY
-    by data reweighting (see _make_logistic_delegate) — and wire the
-    poisson family's beta block to the nested_poisson fused single-kernel
-    steps (the 2-level model is the subject block with prior mean mu).
-    fused=False keeps the generic jnp op-by-op path (the A/B reference;
-    gaussian/negbin always run it — their likelihoods read an aux
-    block)."""
+    delegate (default True): build the bernoulli/binomial families as
+    models.make_hier_logistic — bernoulli is literally the same model;
+    binomial reduces to it EXACTLY by data reweighting (see
+    _make_logistic_delegate) — which brings that model's conjugate draws,
+    its joint (mu, tau) metric interweave and its obs pass (the GPU
+    kernel where ops/dispatch.py picks it). delegate=False keeps the
+    generic path below (the reference the delegation is tested
+    against)."""
     G = data.num_groups
     p = data.num_covariates
     gaussian = family == "gaussian"
@@ -83,7 +78,7 @@ def make_hier_glm(
     if family not in ("gaussian", "binomial", "bernoulli", "poisson",
                       "negbin"):
         raise ValueError(f"unknown family {family!r}")
-    if fused and family in ("bernoulli", "binomial") and isinstance(
+    if delegate and family in ("bernoulli", "binomial") and isinstance(
         data, NestedData
     ):
         return _make_logistic_delegate(
@@ -300,97 +295,6 @@ def make_hier_glm(
         _cond_cached_grad = {}
         _cond_cached_newton = {"beta": (_zero_self_vgh, _full_rest_vgh)}
 
-    # ---- poisson: single-kernel fused steps (VERDICT r4 item 8, round-5
-    # completion). The 2-level model IS the nested_poisson subject block
-    # with the per-subject prior mean specialized to the shared mu, so the
-    # SAME Pallas kernels (ops/pallas/poisson_accept.py, exact-parity
-    # tested in tests/test_poisson_fused.py) serve the generic surface:
-    # bg_s = broadcast(mu), log_tau_s = log_tau. gaussian/negbin stay jnp
-    # (their likelihoods read an aux block the kernels don't carry).
-    _pois_fused = (
-        fused and family == "poisson" and isinstance(data, NestedData)
-    )
-    if _pois_fused:
-        import numpy as _np
-
-        _dense_data = bool(_np.all(_np.asarray(data.mask) == 1.0))
-
-        def _mu_bg(position):
-            return jnp.broadcast_to(
-                position["mu"][:, None, :], position["beta"].shape
-            )
-
-        def fused_beta_update(key, position, cache, log_scale, data_,
-                              noise=None):
-            """Single-kernel RW-MH beta update (propose + Poisson obs pass
-            + prior delta + accept + select in ONE kernel). noise:
-            external (eps, logu) operands for the exact-parity tests."""
-            from nestmc.ops.pallas.poisson_accept import (
-                fused_rwmh_poisson_step,
-            )
-
-            lik_cache = cache.get("beta")
-            if lik_cache is None:
-                lik_cache = lik_self_v(position["beta"], data_)
-            return fused_rwmh_poisson_step(
-                key, position["beta"], lik_cache, log_scale,
-                _mu_bg(position), position["log_tau"],
-                data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0),
-                dense=_dense_data, noise=noise,
-            )
-
-        def fused_mala_beta_update(key, position, cache, log_scale, data_,
-                                   noise=None):
-            """Single-kernel MALA beta update (propose + logp+grad obs
-            pass + correction + accept + cache refresh in one kernel)."""
-            from nestmc.ops.pallas.poisson_accept import (
-                fused_mala_poisson_step,
-            )
-
-            c = cache.get("beta")
-            if isinstance(c, dict):
-                v, g = c["v"], c["g"]
-            else:
-                v, g = lik_self_vg(position["beta"], data_)
-            nb, nv, ng, alpha = fused_mala_poisson_step(
-                key, position["beta"], v, g, log_scale,
-                _mu_bg(position), position["log_tau"],
-                data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0),
-                dense=_dense_data, noise=noise,
-            )
-            return nb, {"v": nv, "g": ng}, alpha
-
-        def fused_newton_beta_update(key, position, cache, log_scale,
-                                     data_, frozen=False, noise=None):
-            """Single-kernel Newton-MH beta update (Laplace propose via
-            in-register packed Cholesky + logp/grad/Hess obs pass + full
-            correction + accept). frozen: constant metric, obs pass at
-            MALA cost (KernelConfig.newton_freeze sampling phase)."""
-            from nestmc.ops.pallas.poisson_accept import (
-                fused_newton_poisson_step,
-            )
-
-            c = cache.get("beta")
-            if isinstance(c, dict) and "h" in c:
-                v, g, h = c["v"], c["g"], c["h"]
-            else:
-                v, g, h = lik_self_vgh(position["beta"], data_)
-            nb, nv, ng, nh, alpha = fused_newton_poisson_step(
-                key, position["beta"], v, g, h, log_scale,
-                _mu_bg(position), position["log_tau"],
-                data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0),
-                dense=_dense_data, frozen=frozen, noise=noise,
-            )
-            return nb, {"v": nv, "g": ng, "h": nh}, alpha
-
-        _fused_updates = {"beta": fused_beta_update}
-        _fused_updates_mala = {"beta": fused_mala_beta_update}
-        _fused_updates_newton = {"beta": fused_newton_beta_update}
-    else:
-        _fused_updates = {}
-        _fused_updates_mala = {}
-        _fused_updates_newton = {}
-
     def _suff(beta):
         return jnp.sum(beta, axis=1), jnp.sum(beta**2, axis=1)
 
@@ -478,7 +382,8 @@ def make_hier_glm(
         predictive convention of the benchmark models)."""
         import dataclasses
 
-        eta = jnp.einsum("gnp,gp->gn", data_.x, state["beta"][0])
+        eta = jnp.einsum("gnp,gp->gn", data_.x, state["beta"][0],
+                         precision=jax.lax.Precision.HIGHEST)
         if gaussian:
             sigma = jnp.exp(state["log_sigma"][0])
             y = eta + sigma * jax.random.normal(key, eta.shape)
@@ -635,9 +540,6 @@ def make_hier_glm(
         cond_cached=_cond_cached,
         cond_cached_grad=_cond_cached_grad,
         cond_cached_newton=_cond_cached_newton,
-        fused_updates=_fused_updates,
-        fused_updates_mala=_fused_updates_mala,
-        fused_updates_newton=_fused_updates_newton,
         prior_sample=prior_sample,
         sample_data=sample_data,
         gibbs_draws={
@@ -666,17 +568,16 @@ def _make_logistic_delegate(
     tau_ig_shape: float,
     tau_ig_scale: float,
 ) -> ModelSpec:
-    """Route hier_glm's bernoulli/binomial through the hier_logistic
-    Pallas/fused stack (VERDICT r4 item 8 — the generic surface was
-    jnp-only; these two families get the full RW/MALA/Newton fused
-    single-kernel steps, carried caches, and interweaves).
+    """Build hier_glm's bernoulli/binomial as the hier_logistic model: its
+    carried caches, conjugate draws, joint (mu, tau) interweave moves and
+    obs pass.
 
     bernoulli: identical model — straight delegation (rename only).
 
     binomial: reduces EXACTLY to the weighted-logistic likelihood because
-    the mask enters every kernel as a multiplicative f32 weight on the
-    per-obs (ll, score, curvature) triple (ops/pallas/loglik_logistic.py
-    _lik_terms):
+    the mask enters every obs pass as a multiplicative f32 weight on the
+    per-obs (ll, score, curvature) triple (ops/loglik.py,
+    ops/loglik_triton.py):
 
         ll    = sum_i m_i [ (y_i/m_i) eta - softplus(eta) ] + log C(m,y)
         score = m (y/m - sigmoid)     = y - m sigmoid
@@ -758,7 +659,8 @@ def _make_logistic_delegate(
         transform whatever data they receive, so the Geweke/SBC loop stays
         consistent end to end."""
         m = d.extra["trials"]
-        eta = jnp.einsum("gnp,gp->gn", d.x, state["beta"][0])
+        eta = jnp.einsum("gnp,gp->gn", d.x, state["beta"][0],
+                         precision=jax.lax.Precision.HIGHEST)
         y = jax.random.binomial(
             key, m, jax.nn.sigmoid(eta)
         ).astype(d.y.dtype)
@@ -779,9 +681,6 @@ def _make_logistic_delegate(
         cond_cached_newton=wrapd(base.cond_cached_newton, (1, 2)),
         gibbs_draws=wrapd(base.gibbs_draws, (2,)),
         joint_moves=wrapd(base.joint_moves, (4,)),
-        fused_updates=wrapd(base.fused_updates, (4,)),
-        fused_updates_mala=wrapd(base.fused_updates_mala, (4,)),
-        fused_updates_newton=wrapd(base.fused_updates_newton, (4,)),
         derived={
             **base.derived,
             # true binomial pmf scale for WAIC / PSIS-LOO
@@ -800,7 +699,9 @@ def synth_glm(
     beta = mu + tau * jax.random.normal(ks[2], (G, p))
     x = jax.random.normal(ks[3], (G, n, p))
     x = x.at[:, :, 0].set(1.0)
-    eta = jnp.einsum("gnp,gp->gn", x, beta)
+    # HIGHEST: the same seed must draw the same data on every platform
+    eta = jnp.einsum("gnp,gp->gn", x, beta,
+                     precision=jax.lax.Precision.HIGHEST)
     extra = {}
     if family == "gaussian":
         y = eta + sigma * jax.random.normal(ks[4], (G, n))

@@ -10,8 +10,9 @@ metric's 1k-group variant (BASELINE.json:2,5); BASELINE.json:10 is the same
 model over ragged/segment data at 10k groups.
 
 The group-block conditional is `loglik + gprior` where loglik is the hot
-(chains x groups x obs) reduction; implementation selected at construction:
-'jnp' (reference), 'pallas' (fused TPU kernel), 'auto' (pallas on TPU).
+(chains x groups x obs) reduction; implementation selected at construction
+by ops/dispatch.py: 'jnp' (reference), 'triton' (fused GPU kernel), 'auto'
+(the kernel on a GPU).
 The population blocks (mu, log_tau) never touch the data — their conditional
 reads only beta — so the expensive likelihood runs exactly twice per sweep.
 """
@@ -30,93 +31,75 @@ from nestmc.distributions import (
     logpdf_normal,
 )
 from nestmc.model import Block, ModelSpec
-from nestmc.ops.loglik import logistic_loglik_padded, logistic_loglik_segment
 
 
 def _resolve_loglik(data, impl: str):
-    """Pick the (beta, data) -> (C, G) likelihood implementation.
+    """Pick the likelihood implementation once, from the concrete data.
 
-    Returns (lik_fn, chosen_name, segment_layout_or_None). Ragged impls
-    (static layouts built here, once, from the concrete segment structure):
-      'bucket'         size-bucketed padded-Pallas launches (ops/bucket.py)
-      'pallas-segment' fused tiled-CSR kernel (ops/pallas/loglik_segment.py)
-      'jnp'            gather + segment_sum
-    'auto' picks 'bucket' for ragged data on TPU — measured logp+grad at
-    C=1024, G=10k, N=174k on v5e: bucket 6.4 ms vs tiled-CSR 12.3 ms (the
-    one-hot gather's TG-fold MXU amplification costs more than bucketing's
-    <2x padding) vs jnp 15.7 ms; and unlike the round-1 vjp path none of
-    them OOM at 1024 chains."""
-    ragged = isinstance(data, RaggedData)
-    if impl == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        impl = ("bucket" if ragged else "pallas") if on_tpu else "jnp"
-    if impl == "pallas" and not ragged:
-        import numpy as np
+    Returns (value, value_grad, value_grad_hess, chosen_name), each
+    function of (beta, data). Padded data: the choice of ops/dispatch.py
+    ('triton' on a GPU, 'jnp' elsewhere; 'auto' decides). Ragged data:
+      'jnp'     gather + segment_sum with O(C N) peak memory ('auto')
+      'bucket'  size buckets through the padded obs pass (ops/bucket.py)
+    """
+    import numpy as np
 
-        from nestmc.ops.pallas.loglik_logistic import (
-            logistic_loglik_padded_pallas,
-        )
+    from nestmc.ops import loglik as L
+    from nestmc.ops.dispatch import loglik_impl, padded_obs_pass
 
-        # static at model build: fully-dense data lets the kernels skip
-        # the per-element mask multiplies (they are VPU-bound). The test
-        # must be mask == 1 exactly, not truthiness: the binomial
-        # delegation (models/hier_glm.py) passes TRIALS-weighted masks
-        # whose values are multiplicative likelihood weights.
-        dense = bool(np.all(np.asarray(data.mask) == 1.0))
-
-        def lik(beta, data):
-            return logistic_loglik_padded_pallas(
-                beta, data.x, data.y, data.mask, dense=dense
-            )
-        return lik, impl, None
-    if ragged:
-        if impl == "pallas-segment":
-            import numpy as np
-
-            from nestmc.ops.pallas.loglik_segment import (
-                TiledSegmentLayout,
-                logistic_loglik_segment_pallas,
-            )
-
-            layout = TiledSegmentLayout.build(
-                np.asarray(data.segment_ids), data.num_groups
-            )
-
-            def lik(beta, data):
-                return logistic_loglik_segment_pallas(
-                    beta, data.x, data.y, layout
-                )
-            return lik, impl, layout
+    if isinstance(data, RaggedData):
         if impl == "bucket":
-            import numpy as np
+            from nestmc.ops import bucket as B
 
-            from nestmc.ops.bucket import (
-                BucketLayout,
-                bucketed_logistic_loglik,
-            )
-
-            layout = BucketLayout.build(
+            layout = B.BucketLayout.build(
                 np.asarray(data.segment_ids), data.num_groups
             )
-            pad_impl = (
-                "pallas" if jax.default_backend() == "tpu" else "jnp"
-            )
+            pad = loglik_impl("logistic")
 
-            def lik(beta, data):
-                return bucketed_logistic_loglik(
-                    beta, data.x, data.y, layout, impl=pad_impl
-                )
-            return lik, "bucket", layout
+            def v(beta, d):
+                return B.bucketed_logistic_loglik(
+                    beta, d.x, d.y, layout, impl=pad)
 
-        def lik(beta, data):
-            return logistic_loglik_segment(
-                beta, data.x, data.y, data.segment_ids, data.num_groups
-            )
-        return lik, "jnp-segment", None
+            def vg(beta, d):
+                return B.bucketed_logistic_logp_grad(
+                    beta, d.x, d.y, layout, impl=pad)
 
-    def lik(beta, data):
-        return logistic_loglik_padded(beta, data.x, data.y, data.mask)
-    return lik, "jnp", None
+            def vgh(beta, d):
+                return B.bucketed_logistic_logp_grad_hess(
+                    beta, d.x, d.y, layout, impl=pad)
+            return v, vg, vgh, "bucket"
+        if impl not in ("auto", "jnp"):
+            raise ValueError(f"unknown ragged loglik impl {impl!r}")
+
+        def v(beta, d):
+            return L.logistic_loglik_segment(
+                beta, d.x, d.y, d.segment_ids, d.num_groups)
+
+        def vg(beta, d):
+            return L.logistic_logp_grad_segment(
+                beta, d.x, d.y, d.segment_ids, d.num_groups)
+
+        def vgh(beta, d):
+            return L.logistic_logp_grad_hess_segment(
+                beta, d.x, d.y, d.segment_ids, d.num_groups)
+        return v, vg, vgh, "jnp-segment"
+
+    chosen = loglik_impl("logistic", impl)
+    # mask == 1 exactly, not truthiness: the binomial delegation
+    # (models/hier_glm.py) passes TRIALS-weighted masks whose values are
+    # multiplicative likelihood weights
+    dense = bool(np.all(np.asarray(data.mask) == 1.0))
+    fv, fvg, fvgh = padded_obs_pass("logistic", chosen, dense=dense)
+
+    def v(beta, d):
+        return fv(beta, d.x, d.y, d.mask)
+
+    def vg(beta, d):
+        return fvg(beta, d.x, d.y, d.mask)
+
+    def vgh(beta, d):
+        return fvgh(beta, d.x, d.y, d.mask)
+    return v, vg, vgh, chosen
 
 
 def make_hier_logistic(
@@ -143,21 +126,9 @@ def make_hier_logistic(
     if tau_prior not in ("halfnormal", "invgamma"):
         raise ValueError(tau_prior)
     conj_tau = tau_prior == "invgamma"
-    lik_fn, chosen, seg_layout = _resolve_loglik(data, loglik_impl)
-    if isinstance(data, RaggedData):
-        _dense_data = False
-        if chosen == "bucket":
-            from nestmc.ops.bucket import covers_all_groups
-
-            _bucket_full = covers_all_groups(seg_layout)
-        else:
-            _bucket_full = False
-    else:
-        import numpy as np
-
-        # mask == 1 exactly (see _resolve_loglik): weight-masks must keep
-        # their per-element multiplies
-        _dense_data = bool(np.all(np.asarray(data.mask) == 1.0))
+    lik_fn, lik_value_and_grad, lik_value_grad_hess, chosen = (
+        _resolve_loglik(data, loglik_impl)
+    )
 
     _LOG_2PI = 1.8378770664093453
 
@@ -237,49 +208,6 @@ def make_hier_logistic(
             ) + pprior
         raise KeyError(name)
 
-    def lik_value_and_grad(value, data):
-        """(loglik (C,G), grad (C,G,p)) of the data likelihood only —
-        fused Pallas kernel on padded data (BASELINE.json:11); for ragged
-        data the fused Pallas segment kernel, or the memory-lean jnp
-        formulation (O(C N) peak instead of the O(C N p) jax.vjp that
-        OOMed a v5e at 1024 chains)."""
-        if isinstance(data, RaggedData):
-            if chosen == "pallas-segment":
-                from nestmc.ops.pallas.loglik_segment import (
-                    logistic_logp_grad_segment_pallas,
-                )
-
-                return logistic_logp_grad_segment_pallas(
-                    value, data.x, data.y, seg_layout
-                )
-            if chosen == "bucket":
-                from nestmc.ops.bucket import bucketed_logistic_logp_grad
-
-                pad_impl = (
-                    "pallas" if jax.default_backend() == "tpu" else "jnp"
-                )
-                return bucketed_logistic_logp_grad(
-                    value, data.x, data.y, seg_layout, impl=pad_impl
-                )
-            from nestmc.ops.loglik import logistic_logp_grad_segment
-
-            return logistic_logp_grad_segment(
-                value, data.x, data.y, data.segment_ids, data.num_groups
-            )
-        if chosen == "pallas":
-            from nestmc.ops.pallas.loglik_logistic import (
-                logistic_logp_grad_pallas,
-            )
-
-            # _dense_data: static, computed from the CONCRETE data at
-            # model build (data here is traced through the jit boundary)
-            return logistic_logp_grad_pallas(
-                value, data.x, data.y, data.mask, dense=_dense_data,
-            )
-        out, vjp = jax.vjp(lambda b: lik_fn(b, data), value)
-        (g,) = vjp(jnp.ones_like(out))
-        return out, g
-
     def gprior_value_and_grad(value, state, data):
         """Closed-form per-group Gaussian prior value+grad wrt beta."""
         mu = state["mu"][:, None, :]
@@ -291,42 +219,6 @@ def make_hier_logistic(
             axis=-1,
         )
         return gp_val, -diff * inv_tau2
-
-    def lik_value_grad_hess(value, data):
-        """(loglik (C,G), grad (C,G,p), packed -Hessian (C,G,T)) of the
-        data likelihood — the Newton-MH obs pass (kernels/newton.py). The
-        Hessian shares the gradient's sigmoid: w = s(1-s), zero extra
-        transcendentals."""
-        if isinstance(data, RaggedData):
-            if chosen == "bucket":
-                from nestmc.ops.bucket import (
-                    bucketed_logistic_logp_grad_hess,
-                )
-
-                pad_impl = (
-                    "pallas" if jax.default_backend() == "tpu" else "jnp"
-                )
-                return bucketed_logistic_logp_grad_hess(
-                    value, data.x, data.y, seg_layout, impl=pad_impl
-                )
-            from nestmc.ops.loglik import logistic_logp_grad_hess_segment
-
-            return logistic_logp_grad_hess_segment(
-                value, data.x, data.y, data.segment_ids, data.num_groups
-            )
-        if chosen == "pallas":
-            from nestmc.ops.pallas.loglik_logistic import (
-                logistic_logp_grad_hess_pallas,
-            )
-
-            return logistic_logp_grad_hess_pallas(
-                value, data.x, data.y, data.mask, dense=_dense_data,
-            )
-        from nestmc.ops.loglik import logistic_logp_grad_hess_padded
-
-        return logistic_logp_grad_hess_padded(
-            value, data.x, data.y, data.mask
-        )
 
     def gprior_vgh(value, state, data):
         """Prior part of the Newton split: the Gaussian prior's negative
@@ -371,109 +263,6 @@ def make_hier_logistic(
         ll, gll = lik_value_and_grad(value, data)
         gp_val, gp_grad = gprior_value_and_grad(value, state, data)
         return ll + gp_val, gll + gp_grad
-
-    def fused_beta_update(key, position, cache, log_scale, data):
-        """Single-kernel RW-MH update of beta (ops/pallas/mh_accept.py)."""
-        from nestmc.ops.pallas.mh_accept import fused_rwmh_logistic_step
-
-        lik_cache = cache.get("beta")
-        if lik_cache is None:
-            lik_cache = lik_fn(position["beta"], data)
-        return fused_rwmh_logistic_step(
-            key, position["beta"], lik_cache, log_scale,
-            position["mu"], position["log_tau"],
-            data.x, data.y, data.mask,
-        )
-
-    def _jnp_fold(rhat_fold, beta):
-        from nestmc.diagnostics import fold_rhat_update
-
-        return fold_rhat_update(
-            rhat_fold[0], rhat_fold[1],
-            jnp.transpose(beta, (1, 2, 0)), rhat_fold[2],
-        )
-
-    def fused_mala_beta_update(key, position, cache, log_scale, data,
-                               rhat_fold=None):
-        """Single-kernel MALA update of beta (ops/pallas/mala_accept.py):
-        propose+logp+grad+correct+accept+select in one pass. Ragged data
-        runs the same kernel once per size bucket
-        (ops/bucket.py::bucketed_fused_mala_step). rhat_fold: streaming-
-        R-hat accumulators folded with the pre-update beta in the SAME
-        kernel (jnp reference on the bucketed path); appends the updated
-        (mean, m2) to the return."""
-        c = cache.get("beta")
-        if isinstance(c, dict):
-            v, g = c["v"], c["g"]
-        else:
-            v, g = lik_value_and_grad(position["beta"], data)
-        if isinstance(data, RaggedData):
-            from nestmc.ops.bucket import bucketed_fused_mala_step
-
-            nb, nv, ng, alpha = bucketed_fused_mala_step(
-                key, position["beta"], v, g, log_scale,
-                position["mu"], position["log_tau"],
-                data.x, data.y, seg_layout,
-            )
-            if rhat_fold is not None:
-                return nb, {"v": nv, "g": ng}, alpha, _jnp_fold(
-                    rhat_fold, position["beta"]
-                )
-            return nb, {"v": nv, "g": ng}, alpha
-        from nestmc.ops.pallas.mala_accept import fused_mala_logistic_step
-
-        out = fused_mala_logistic_step(
-            key, position["beta"], v, g, log_scale,
-            position["mu"], position["log_tau"],
-            data.x, data.y, data.mask, dense=_dense_data,
-            rhat_fold=rhat_fold,
-        )
-        nb, nv, ng, alpha = out[:4]
-        if rhat_fold is not None:
-            return nb, {"v": nv, "g": ng}, alpha, (out[4], out[5])
-        return nb, {"v": nv, "g": ng}, alpha
-
-    def fused_newton_beta_update(key, position, cache, log_scale, data,
-                                 frozen=False, rhat_fold=None):
-        """Single-kernel Newton-MH update of beta
-        (ops/pallas/newton_accept.py): Laplace propose + logp+grad+Hess obs
-        pass + full correction + accept + select in one pass. frozen: the
-        carried Hessian is a constant metric (sampling phase of
-        KernelConfig.newton_freeze) — the obs pass drops to MALA cost.
-        Ragged data runs the same kernel once per size bucket
-        (ops/bucket.py::bucketed_fused_newton_step)."""
-        c = cache.get("beta")
-        if isinstance(c, dict) and "h" in c:
-            v, g, h = c["v"], c["g"], c["h"]
-        else:
-            v, g, h = lik_value_grad_hess(position["beta"], data)
-        if isinstance(data, RaggedData):
-            from nestmc.ops.bucket import bucketed_fused_newton_step
-
-            nb, nv, ng, nh, alpha = bucketed_fused_newton_step(
-                key, position["beta"], v, g, h, log_scale,
-                position["mu"], position["log_tau"],
-                data.x, data.y, seg_layout, frozen=frozen,
-            )
-            if rhat_fold is not None:
-                return nb, {"v": nv, "g": ng, "h": nh}, alpha, _jnp_fold(
-                    rhat_fold, position["beta"]
-                )
-            return nb, {"v": nv, "g": ng, "h": nh}, alpha
-        from nestmc.ops.pallas.newton_accept import (
-            fused_newton_logistic_step,
-        )
-
-        out = fused_newton_logistic_step(
-            key, position["beta"], v, g, h, log_scale,
-            position["mu"], position["log_tau"],
-            data.x, data.y, data.mask, dense=_dense_data, frozen=frozen,
-            rhat_fold=rhat_fold,
-        )
-        nb, nv, ng, nh, alpha = out[:5]
-        if rhat_fold is not None:
-            return nb, {"v": nv, "g": ng, "h": nh}, alpha, (out[5], out[6])
-        return nb, {"v": nv, "g": ng, "h": nh}, alpha
 
     def asis_tau_move(key, position, cache, scale, data, frozen=False):
         """ASIS interweaving move (Yu & Meng 2011): MH on log_tau in the
@@ -753,13 +542,14 @@ def make_hier_logistic(
         beta = state["beta"][0]  # (G, p)
         if isinstance(data, RaggedData):
             eta = jnp.einsum("np,np->n", jnp.take(beta, data.segment_ids, 0),
-                             data.x)
+                             data.x, precision=jax.lax.Precision.HIGHEST)
             y = jax.random.bernoulli(key, jax.nn.sigmoid(eta))
             return RaggedData(
                 y=y.astype(data.y.dtype), segment_ids=data.segment_ids,
                 num_groups=data.num_groups, x=data.x, extra=data.extra,
             )
-        eta = jnp.einsum("gnp,gp->gn", data.x, beta)
+        eta = jnp.einsum("gnp,gp->gn", data.x, beta,
+                         precision=jax.lax.Precision.HIGHEST)
         y = jax.random.bernoulli(key, jax.nn.sigmoid(eta))
         return NestedData(
             y=y.astype(data.y.dtype) * data.mask, mask=data.mask,
@@ -805,7 +595,7 @@ def make_hier_logistic(
         # each repeat costs one obs-pass likelihood eval (~half the sweep);
         # tau mixing is the min-ESS floor on the judged config, so extra
         # interweaving repeats trade sweep cost for tau ESS/sweep
-        # (measured A/B: BASELINE.md round 3)
+        # (DESIGN.md §3a)
         joint_move_repeats={"asis_tau": max(1, int(asis_repeats))},
         # The ASIS log-alpha sums likelihood deltas over all G groups, so
         # the optimal step is ~ (p G)^(-1/2) (Fisher info grows linearly in
@@ -822,27 +612,6 @@ def make_hier_logistic(
         # RW optimum under rwmh; the MALA optimum once the grad cache
         # makes the move Langevin (resolved by kernels/gibbs.py)
         joint_move_target_accept={"asis_tau": "auto"},
-        # Ragged data: the MALA/Newton fused steps run per size bucket
-        # (ops/bucket.py) — available only through the bucket layout and
-        # only when every group has >= 1 obs (a size-0 group still needs
-        # its prior-only MH move, which the bucketed step would skip);
-        # otherwise the sweep keeps the unfused op-by-op update. The RW
-        # fused step stays padded-only (config 4's kernels are MALA/
-        # Newton; ragged RW has no measured hot path).
-        fused_updates=(
-            {} if isinstance(data, RaggedData)
-            else {"beta": fused_beta_update}
-        ),
-        fused_updates_mala=(
-            ({"beta": fused_mala_beta_update} if _bucket_full else {})
-            if isinstance(data, RaggedData)
-            else {"beta": fused_mala_beta_update}
-        ),
-        fused_updates_newton=(
-            ({"beta": fused_newton_beta_update} if _bucket_full else {})
-            if isinstance(data, RaggedData)
-            else {"beta": fused_newton_beta_update}
-        ),
         cond_value_and_grad=cond_value_and_grad,
         cond_cached_grad={
             "beta": (lik_value_and_grad, gprior_value_and_grad),
@@ -885,7 +654,10 @@ def synth_logistic(
     x = jax.random.normal(kx, (G, n, p), dtype=dtype)
     # intercept column keeps the design realistic
     x = x.at[:, :, 0].set(1.0)
-    eta = jnp.einsum("gnp,gp->gn", x, beta)
+    # HIGHEST: the same seed must draw the same data on every platform
+    # (a GPU would otherwise run this contraction in TF32)
+    eta = jnp.einsum("gnp,gp->gn", x, beta,
+                     precision=jax.lax.Precision.HIGHEST)
     y = jax.random.bernoulli(ky, jax.nn.sigmoid(eta)).astype(dtype)
     truth = {"mu": mu, "tau": tau, "beta": beta}
     if not ragged:

@@ -27,7 +27,6 @@ from nestmc.distributions import (
     logpdf_normal,
 )
 from nestmc.model import Block, ModelSpec
-from nestmc.ops.loglik import poisson_loglik_padded
 
 
 def _segsum_cs_to_cg(arr_cs, subject_group, num_groups):
@@ -38,25 +37,23 @@ def _segsum_cs_to_cg(arr_cs, subject_group, num_groups):
     ).T
 
 
-def _resolve_loglik(impl: str):
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if impl == "pallas":
-        from nestmc.ops.pallas.loglik_poisson import (
-            poisson_loglik_padded_pallas,
-        )
+def _resolve_loglik(data: NestedData3, impl: str):
+    """(value, value_grad, value_grad_hess, chosen) of the subject-level
+    Poisson obs pass, each f(beta_s, data, lgamma_y); the implementation
+    is chosen by ops/dispatch.py ('triton' on a GPU, 'jnp' elsewhere)."""
+    import numpy as np
 
-        def lik(beta_s, data, lgamma_y):
-            return poisson_loglik_padded_pallas(
-                beta_s, data.x, data.y, data.mask, lgamma_y
-            )
-        return lik, impl
+    from nestmc.ops.dispatch import loglik_impl, padded_obs_pass
 
-    def lik(beta_s, data, lgamma_y):
-        return poisson_loglik_padded(
-            beta_s, data.x, data.y, data.mask, lgamma_y
-        )
-    return lik, "jnp"
+    chosen = loglik_impl("poisson", impl)
+    dense = bool(np.all(np.asarray(data.mask) == 1.0))
+    fns = padded_obs_pass("poisson", chosen, dense=dense)
+
+    def bind(f):
+        def g(beta_s, d, lgamma_y):
+            return f(beta_s, d.x, d.y, d.mask, lgamma_y)
+        return g
+    return (*(bind(f) for f in fns), chosen)
 
 
 def make_nested_poisson(
@@ -86,7 +83,7 @@ def make_nested_poisson(
     if tau_prior not in ("halfnormal", "invgamma"):
         raise ValueError(tau_prior)
     conj_tau = tau_prior == "invgamma"
-    lik_fn, chosen = _resolve_loglik(loglik_impl)
+    lik_fn, lik_vg, lik_vgh, chosen = _resolve_loglik(data, loglik_impl)
 
     def _lik(beta_s, d):
         # lgamma(y+1) is computed from the TRACED data (not baked in as a
@@ -189,19 +186,8 @@ def make_nested_poisson(
         raise KeyError(name)
 
     def lik_value_and_grad(value, data_):
-        """(loglik (C,S), grad (C,S,p)) of the obs likelihood only — fused
-        Pallas kernel (nestmc/ops/pallas/loglik_poisson.py) or one vjp."""
-        if chosen == "pallas":
-            from nestmc.ops.pallas.loglik_poisson import (
-                poisson_logp_grad_pallas,
-            )
-
-            return poisson_logp_grad_pallas(
-                value, data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0)
-            )
-        out, vjp = jax.vjp(lambda b: _lik(b, data_), value)
-        (g,) = vjp(jnp.ones_like(out))
-        return out, g
+        """(loglik (C,S), grad (C,S,p)) of the obs likelihood only."""
+        return lik_vg(value, data_, gammaln(data_.y + 1.0))
 
     def sprior_value_and_grad(value, state, data_):
         bg_s = jnp.take(state["beta_g"], data_.subject_group, axis=1)
@@ -219,19 +205,7 @@ def make_nested_poisson(
         obs likelihood — the Newton-MH obs pass (kernels/newton.py). The
         Poisson curvature w = exp(eta) is the rate the gradient already
         computed: zero extra transcendentals."""
-        if chosen == "pallas":
-            from nestmc.ops.pallas.loglik_poisson import (
-                poisson_logp_grad_hess_pallas,
-            )
-
-            return poisson_logp_grad_hess_pallas(
-                value, data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0)
-            )
-        from nestmc.ops.loglik import poisson_logp_grad_hess_padded
-
-        return poisson_logp_grad_hess_padded(
-            value, data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0)
-        )
+        return lik_vgh(value, data_, gammaln(data_.y + 1.0))
 
     def sprior_vgh(value, state, data_):
         """Subject-prior part of the Newton split: the Gaussian prior's
@@ -242,76 +216,6 @@ def make_nested_poisson(
         val, grad = sprior_value_and_grad(value, state, data_)
         inv_ts2 = jnp.exp(-2.0 * state["log_tau_s"])     # (C, p)
         return val, grad, pack_diag(inv_ts2, p)[:, None, :]
-
-    import numpy as np
-
-    # static density flag from the CONCRETE build-time data: dense rows let
-    # the fused kernels skip the per-element mask multiplies (the padded
-    # subject rows are still gated on the summed outputs)
-    _dense_data = bool(np.all(np.asarray(data.mask) == 1.0))
-
-    def _bgs(position, data_):
-        return jnp.take(position["beta_g"], data_.subject_group, axis=1)
-
-    def fused_rwmh_beta_s_update(key, position, cache, log_scale, data_):
-        """Single-kernel RW-MH update of beta_s
-        (ops/pallas/poisson_accept.py): propose + Poisson obs pass + prior
-        delta + accept + select in ONE kernel. The config-3 sweep at
-        C=512/S=4000 is per-op-latency-sensitive (VERDICT r3 item 2); this
-        collapses the ~20-op RW update around the likelihood kernel."""
-        from nestmc.ops.pallas.poisson_accept import fused_rwmh_poisson_step
-
-        lik_cache = cache.get("beta_s")
-        if lik_cache is None:
-            lik_cache = _lik(position["beta_s"], data_)
-        return fused_rwmh_poisson_step(
-            key, position["beta_s"], lik_cache, log_scale,
-            _bgs(position, data_), position["log_tau_s"],
-            data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0),
-            dense=_dense_data,
-        )
-
-    def fused_mala_beta_s_update(key, position, cache, log_scale, data_):
-        """Single-kernel MALA update of beta_s (propose + logp+grad obs
-        pass + correction + accept + cache refresh in one kernel)."""
-        from nestmc.ops.pallas.poisson_accept import fused_mala_poisson_step
-
-        c = cache.get("beta_s")
-        if isinstance(c, dict):
-            v, g = c["v"], c["g"]
-        else:
-            v, g = lik_value_and_grad(position["beta_s"], data_)
-        nb, nv, ng, alpha = fused_mala_poisson_step(
-            key, position["beta_s"], v, g, log_scale,
-            _bgs(position, data_), position["log_tau_s"],
-            data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0),
-            dense=_dense_data,
-        )
-        return nb, {"v": nv, "g": ng}, alpha
-
-    def fused_newton_beta_s_update(key, position, cache, log_scale, data_,
-                                   frozen=False):
-        """Single-kernel Newton-MH update of beta_s: Laplace propose (in-
-        register packed Cholesky) + logp/grad/Hess obs pass (curvature
-        w = exp(eta) shares the gradient's transcendental) + full
-        correction + accept. frozen: constant metric, obs pass at MALA
-        cost (KernelConfig.newton_freeze sampling phase)."""
-        from nestmc.ops.pallas.poisson_accept import (
-            fused_newton_poisson_step,
-        )
-
-        c = cache.get("beta_s")
-        if isinstance(c, dict) and "h" in c:
-            v, g, h = c["v"], c["g"], c["h"]
-        else:
-            v, g, h = lik_value_grad_hess(position["beta_s"], data_)
-        nb, nv, ng, nh, alpha = fused_newton_poisson_step(
-            key, position["beta_s"], v, g, h, log_scale,
-            _bgs(position, data_), position["log_tau_s"],
-            data_.x, data_.y, data_.mask, gammaln(data_.y + 1.0),
-            dense=_dense_data, frozen=frozen,
-        )
-        return nb, {"v": nv, "g": ng, "h": nh}, alpha
 
     def gibbs_mu(key, state, data):
         """Exact conjugate draw of mu | beta_g, tau_g (per coordinate)."""
@@ -644,7 +548,8 @@ def make_nested_poisson(
         }
 
     def sample_data(key, state, data):
-        eta = jnp.einsum("snp,sp->sn", data.x, state["beta_s"][0])
+        eta = jnp.einsum("snp,sp->sn", data.x, state["beta_s"][0],
+                         precision=jax.lax.Precision.HIGHEST)
         y = jax.random.poisson(key, jnp.exp(eta)).astype(data.y.dtype)
         return NestedData3(
             y=y * data.mask, mask=data.mask,
@@ -683,13 +588,6 @@ def make_nested_poisson(
         cond_cached_newton={
             "beta_s": (lik_value_grad_hess, sprior_vgh),
         },
-        # single-kernel MH steps for the obs block (VERDICT r3 item 2):
-        # one Pallas launch replaces the op-by-op update around the
-        # likelihood kernel — config 3's 512-chain sweep is in the same
-        # per-op-latency regime where config 5 measured +16%/+34%
-        fused_updates={"beta_s": fused_rwmh_beta_s_update},
-        fused_updates_mala={"beta_s": fused_mala_beta_s_update},
-        fused_updates_newton={"beta_s": fused_newton_beta_s_update},
         gibbs_draws={
             "mu": gibbs_mu,
             "beta_g": gibbs_beta_g,
@@ -759,7 +657,9 @@ def synth_poisson3(
     )
     x = 0.5 * jax.random.normal(ks[5], (S, n, p), dtype=dtype)
     x = x.at[:, :, 0].set(1.0)
-    eta = jnp.einsum("snp,sp->sn", x, beta_s)
+    # HIGHEST: the same seed must draw the same data on every platform
+    eta = jnp.einsum("snp,sp->sn", x, beta_s,
+                     precision=jax.lax.Precision.HIGHEST)
     y = jax.random.poisson(jax.random.fold_in(key, 7), jnp.exp(eta)).astype(
         dtype
     )

@@ -1,8 +1,8 @@
 """Hot likelihood reductions over the chains x groups x observations lattice.
 
-``nestmc.ops.loglik`` holds the pure-jnp reference implementations (always
-correct, used for tests and as CPU fallback); ``nestmc.ops.pallas`` holds the
-fused Pallas TPU kernels with identical signatures and parity tests.
+``nestmc.ops.loglik`` holds the pure-jnp reference implementations;
+``nestmc.ops.loglik_triton`` the fused GPU kernel held to them by parity
+tests; ``nestmc.ops.dispatch`` chooses between the two by platform.
 """
 
 from nestmc.ops.loglik import (

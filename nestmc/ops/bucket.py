@@ -1,16 +1,15 @@
-"""Bucketed evaluation of ragged likelihoods through the PADDED kernels.
+"""Bucketed evaluation of ragged likelihoods through the PADDED obs pass.
 
-The alternative ragged strategy to the tiled-CSR segment kernel
-(ops/pallas/loglik_segment.py): partition groups into size buckets, pad
-each bucket only to its own cap (power-of-2 edges bound padding waste to
-<2x), and run the measured-optimal padded kernel once per bucket —
-SURVEY.md §2.1 "size-bucketing to bound padding waste", the engine wiring
-for data.py::bucket_by_size.
+The alternative ragged strategy to gather + segment_sum
+(ops/loglik.py::*_segment): partition groups into size buckets, pad each
+bucket only to its own cap (power-of-2 edges bound padding waste to <2x),
+and run the padded obs pass (jnp reference or GPU kernel, chosen by
+ops/dispatch.py) once per bucket — SURVEY.md §2.1 "size-bucketing to bound
+padding waste", the engine wiring for data.py::bucket_by_size.
 
-Like TiledSegmentLayout, the bucket structure is built ONCE on the host
-from the (static) segment structure; the value gathers run traced, are
-loop-invariant in the sampling scan, and keep data sharding flowing
-through the jit boundary.
+The bucket structure is built ONCE on the host from the (static) segment
+structure; the value gathers run traced, are loop-invariant in the
+sampling scan, and keep data sharding flowing through the jit boundary.
 """
 
 from __future__ import annotations
@@ -101,186 +100,42 @@ def _gather_bucket(b: Bucket, x, y):
     return xb, yb, valid.astype(jnp.float32)
 
 
-def bucketed_logistic_loglik(beta, x, y, layout: BucketLayout,
-                             impl: str = "jnp"):
-    """(C, G, p) beta + flat ragged obs -> (C, G) loglik, one padded-kernel
-    launch per bucket. Parity contract with
-    ops/loglik.py::logistic_loglik_segment (tests/test_bucket.py)."""
-    from nestmc.ops.loglik import logistic_loglik_padded
+def _per_bucket(beta, x, y, layout: BucketLayout, impl: str, which: int):
+    """Run obs-pass output set ``which`` (0 value, 1 +grad, 2 +Hessian)
+    once per bucket and scatter the results back to (C, G, ...)."""
+    from nestmc.ops.dispatch import padded_obs_pass
 
-    C, G, _ = beta.shape
-    ll = jnp.zeros((C, G), jnp.float32)
-    for b in layout.buckets:
-        xb, yb, mb = _gather_bucket(b, x, y)
-        bb = jnp.take(beta, b.group_index, axis=1)
-        if impl == "pallas":
-            from nestmc.ops.pallas.loglik_logistic import (
-                logistic_loglik_padded_pallas,
-            )
-
-            llb = logistic_loglik_padded_pallas(bb, xb, yb, mb)
-        else:
-            llb = logistic_loglik_padded(bb, xb, yb, mb)
-        ll = ll.at[:, b.group_index].set(llb)
-    return ll
-
-
-def bucketed_logistic_logp_grad_hess(beta, x, y, layout: BucketLayout,
-                                     impl: str = "jnp"):
-    """Fused value+grad+packed-Hessian per bucket — the Newton-MH obs
-    pass on ragged data: ((C, G), (C, G, p), (C, G, T)). Same parity
-    contract as ops/loglik.py::logistic_logp_grad_hess_segment."""
+    fn = padded_obs_pass("logistic", impl)[which]
     C, G, p = beta.shape
     T = p * (p + 1) // 2
-    ll = jnp.zeros((C, G), jnp.float32)
-    grad = jnp.zeros((C, G, p), jnp.float32)
-    hess = jnp.zeros((C, G, T), jnp.float32)
+    outs = [jnp.zeros((C, G), jnp.float32), jnp.zeros((C, G, p), jnp.float32),
+            jnp.zeros((C, G, T), jnp.float32)][:which + 1]
     for b in layout.buckets:
         xb, yb, mb = _gather_bucket(b, x, y)
         bb = jnp.take(beta, b.group_index, axis=1)
-        if impl == "pallas":
-            from nestmc.ops.pallas.loglik_logistic import (
-                logistic_logp_grad_hess_pallas,
-            )
-
-            llb, gb, hb = logistic_logp_grad_hess_pallas(bb, xb, yb, mb)
-        else:
-            from nestmc.ops.loglik import logistic_logp_grad_hess_padded
-
-            llb, gb, hb = logistic_logp_grad_hess_padded(bb, xb, yb, mb)
-        ll = ll.at[:, b.group_index].set(llb)
-        grad = grad.at[:, b.group_index, :].set(gb)
-        hess = hess.at[:, b.group_index, :].set(hb)
-    return ll, grad, hess
+        got = fn(bb, xb, yb, mb)
+        got = got if isinstance(got, tuple) else (got,)
+        outs = [o.at[:, b.group_index].set(r) for o, r in zip(outs, got)]
+    return outs[0] if which == 0 else tuple(outs)
 
 
-def covers_all_groups(layout: BucketLayout) -> bool:
-    """True when every group falls in some bucket (i.e. no size-0 groups).
-
-    The bucketed FUSED STEPS below update only bucketed groups; a size-0
-    group still needs its prior-only MH move each sweep, so the model
-    wiring must fall back to the unfused update when coverage is partial
-    (the bucketed LIKELIHOOD reductions above are unaffected: a size-0
-    group's log-likelihood is exactly the zero the scatter leaves)."""
-    covered = sum(int(b.group_index.shape[0]) for b in layout.buckets)
-    return covered == layout.num_groups
-
-
-def bucketed_fused_mala_step(key, beta, v, g, log_scale, mu, log_tau,
-                             x, y, layout: BucketLayout, noise=None):
-    """Single-kernel MALA step (ops/pallas/mala_accept.py) over ragged
-    data: one fused propose+logp+grad+correct+accept launch per size
-    bucket, gather/scatter glue between. Each bucket is an independent
-    partition of the conditionally-independent group block, so running
-    the padded fused kernel per bucket IS the whole-block update — same
-    math as kernels/mala.py, per-bucket PRNG streams via fold_in.
-
-    beta (C,G,p); v (C,G)/g (C,G,p) the carried data-lik cache; noise:
-    None (on-core PRNG) or (eps (C,G,p), logu (C,G)) for exact-parity
-    tests. Requires covers_all_groups(layout) — callers enforce.
-    Returns (new_beta, new_v, new_g, alpha (C,G))."""
-    from nestmc.ops.pallas.mala_accept import fused_mala_logistic_step
-
-    C, G, _ = beta.shape
-    nb, nv, ng = beta, v, g
-    alpha = jnp.zeros((C, G), jnp.float32)
-    per_unit_scale = log_scale.shape[-1] != 1
-    for i, b in enumerate(layout.buckets):
-        xb, yb, mb = _gather_bucket(b, x, y)
-        kb = jax.random.fold_in(key, i)
-        bb = jnp.take(beta, b.group_index, axis=1)
-        vb = jnp.take(v, b.group_index, axis=1)
-        gb = jnp.take(g, b.group_index, axis=1)
-        lsb = (
-            jnp.take(log_scale, b.group_index, axis=1)
-            if per_unit_scale else log_scale
-        )
-        nz = None
-        if noise is not None:
-            eps, logu = noise
-            nz = (
-                jnp.take(eps, b.group_index, axis=1),
-                jnp.take(logu, b.group_index, axis=1),
-            )
-        nbb, nvb, ngb, ab = fused_mala_logistic_step(
-            kb, bb, vb, gb, lsb, mu, log_tau, xb, yb, mb, noise=nz,
-        )
-        nb = nb.at[:, b.group_index].set(nbb)
-        nv = nv.at[:, b.group_index].set(nvb)
-        ng = ng.at[:, b.group_index].set(ngb)
-        alpha = alpha.at[:, b.group_index].set(ab)
-    return nb, nv, ng, alpha
-
-
-def bucketed_fused_newton_step(key, beta, v, g, h, log_scale, mu, log_tau,
-                               x, y, layout: BucketLayout, noise=None,
-                               frozen: bool = False):
-    """Newton-MH analog of bucketed_fused_mala_step
-    (ops/pallas/newton_accept.py per bucket): Laplace propose +
-    logp/grad(+Hess) obs pass + correction + accept in one kernel per
-    size bucket. frozen: the carried packed Hessian is a constant metric
-    (sampling phase of KernelConfig.newton_freeze) — per-bucket kernels
-    skip the Hessian pass and h is returned unchanged.
-    Returns (new_beta, new_v, new_g, new_h, alpha (C,G))."""
-    from nestmc.ops.pallas.newton_accept import fused_newton_logistic_step
-
-    C, G, _ = beta.shape
-    nb, nv, ng, nh = beta, v, g, h
-    alpha = jnp.zeros((C, G), jnp.float32)
-    per_unit_scale = log_scale.shape[-1] != 1
-    for i, b in enumerate(layout.buckets):
-        xb, yb, mb = _gather_bucket(b, x, y)
-        kb = jax.random.fold_in(key, i)
-        bb = jnp.take(beta, b.group_index, axis=1)
-        vb = jnp.take(v, b.group_index, axis=1)
-        gb = jnp.take(g, b.group_index, axis=1)
-        hb = jnp.take(h, b.group_index, axis=1)
-        lsb = (
-            jnp.take(log_scale, b.group_index, axis=1)
-            if per_unit_scale else log_scale
-        )
-        nz = None
-        if noise is not None:
-            eps, logu = noise
-            nz = (
-                jnp.take(eps, b.group_index, axis=1),
-                jnp.take(logu, b.group_index, axis=1),
-            )
-        nbb, nvb, ngb, nhb, ab = fused_newton_logistic_step(
-            kb, bb, vb, gb, hb, lsb, mu, log_tau, xb, yb, mb,
-            noise=nz, frozen=frozen,
-        )
-        nb = nb.at[:, b.group_index].set(nbb)
-        nv = nv.at[:, b.group_index].set(nvb)
-        ng = ng.at[:, b.group_index].set(ngb)
-        if not frozen:
-            nh = nh.at[:, b.group_index].set(nhb)
-        alpha = alpha.at[:, b.group_index].set(ab)
-    return nb, nv, ng, nh, alpha
+def bucketed_logistic_loglik(beta, x, y, layout: BucketLayout,
+                             impl: str = "jnp"):
+    """(C, G, p) beta + flat ragged obs -> (C, G) loglik, one padded
+    obs pass per bucket. Parity contract with
+    ops/loglik.py::logistic_loglik_segment (tests/test_bucket.py)."""
+    return _per_bucket(beta, x, y, layout, impl, 0)
 
 
 def bucketed_logistic_logp_grad(beta, x, y, layout: BucketLayout,
                                 impl: str = "jnp"):
-    """Fused value+grad per bucket: ((C, G), (C, G, p))."""
-    C, G, p = beta.shape
-    ll = jnp.zeros((C, G), jnp.float32)
-    grad = jnp.zeros((C, G, p), jnp.float32)
-    for b in layout.buckets:
-        xb, yb, mb = _gather_bucket(b, x, y)
-        bb = jnp.take(beta, b.group_index, axis=1)
-        if impl == "pallas":
-            from nestmc.ops.pallas.loglik_logistic import (
-                logistic_logp_grad_pallas,
-            )
+    """Value+grad per bucket: ((C, G), (C, G, p))."""
+    return _per_bucket(beta, x, y, layout, impl, 1)
 
-            llb, gb = logistic_logp_grad_pallas(bb, xb, yb, mb)
-        else:
-            from nestmc.ops.loglik import logistic_loglik_padded
 
-            llb, vjp = jax.vjp(
-                lambda bb_: logistic_loglik_padded(bb_, xb, yb, mb), bb
-            )
-            (gb,) = vjp(jnp.ones_like(llb))
-        ll = ll.at[:, b.group_index].set(llb)
-        grad = grad.at[:, b.group_index, :].set(gb)
-    return ll, grad
+def bucketed_logistic_logp_grad_hess(beta, x, y, layout: BucketLayout,
+                                     impl: str = "jnp"):
+    """Value+grad+packed-Hessian per bucket — the Newton-MH obs pass on
+    ragged data: ((C, G), (C, G, p), (C, G, T)). Same parity contract as
+    ops/loglik.py::logistic_logp_grad_hess_segment."""
+    return _per_bucket(beta, x, y, layout, impl, 2)

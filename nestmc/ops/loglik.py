@@ -1,10 +1,9 @@
 """jnp reference implementations of the batched likelihood reductions.
 
-Signatures are shared with the Pallas kernels in :mod:`nestmc.ops.pallas`;
-every Pallas kernel must agree with its function here to float tolerance
-(tests/test_pallas_parity.py). XLA already fuses these into few kernels; the
-Pallas versions exist to fuse the obs-axis streaming reduction tighter and to
-control VMEM tiling at large G.
+The GPU kernel of :mod:`nestmc.ops.loglik_triton` computes the padded
+functions here in one pass and must agree with them to float tolerance
+(tests/test_pallas_parity.py, chip_smoke.py); the implementation a model
+runs is chosen by :mod:`nestmc.ops.dispatch`.
 
 Shapes:
   beta: (C, G, p) per-chain per-group coefficients
@@ -21,9 +20,10 @@ from jax.scipy.special import gammaln
 
 
 def _eta_padded(beta, x):
-    # (C,G,p) x (G,n,p) -> (C,G,n). precision=HIGHEST: TPU matmuls default
-    # to bf16 inputs (~4e-3 rel error); the reference path must be exact f32
-    # (the Pallas kernels compute eta in true f32 on the VPU).
+    # (C,G,p) x (G,n,p) -> (C,G,n). precision=HIGHEST: on a GPU a float32
+    # contraction without it may run in TF32 (10-bit mantissa, ~1e-3
+    # relative error); the reference path must be true float32, as the
+    # GPU kernel's multiply-adds are.
     return jnp.einsum(
         "cgp,gnp->cgn", beta, x,
         preferred_element_type=jnp.float32,
@@ -102,8 +102,7 @@ def poisson_loglik_segment(beta, x, y, segment_ids, num_groups, lgamma_y=None):
 def _eta_segment_lean(beta, x, segment_ids):
     """eta (C, N) via p separate (C, N) gathers — never materializes the
     (C, N, p) per-obs coefficient tensor (2.1 GB at C=1024, N=175k; the
-    jax.vjp of the _eta_segment form needs ~3 of those and OOMs a v5e —
-    the round-1 failure behind commit 69eea60)."""
+    jax.vjp of the _eta_segment form needs ~3 of those at once)."""
     p = beta.shape[-1]
     eta = jnp.take(beta[:, :, 0], segment_ids, axis=1) * x[:, 0]
     for k in range(1, p):

@@ -4,7 +4,7 @@ The Newton-MH kernel (kernels/newton.py) needs, per (chain, unit), the
 Cholesky factor of the conditional's p x p negative Hessian, two triangular
 solves and a log-determinant. ``p`` is 2..8 for every nested-data model here
 (SURVEY.md section 2.1: group-level coefficient vectors), so batched
-``jax.lax.linalg`` calls would be pure overhead on TPU — each op lowers to a
+``jax.lax.linalg`` calls would be pure overhead — each op lowers to a
 loop-structured custom call that cannot fuse with its elementwise neighbors.
 Instead every routine below unrolls over the STATIC dimension p into ~p^2/2
 scalar-slice ops on a packed lower-triangle layout; XLA fuses the whole

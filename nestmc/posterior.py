@@ -48,13 +48,10 @@ class Posterior:
     def diagnostics(self) -> dict:
         if self._diag_cache is None:
             from nestmc.diagnostics import diagnose_chunked
-            from nestmc.utils.retry import with_transient_retry
 
             # chunked over params: bounds the FFT/rank-normalize temps at
-            # big (chains x draws) so diagnosing never OOMs the chip
-            self._diag_cache = with_transient_retry(
-                diagnose_chunked, self.draws
-            )
+            # big (chains x draws) so diagnosing never OOMs the card
+            self._diag_cache = diagnose_chunked(self.draws)
         return self._diag_cache
 
     def worst_rhat(self) -> float:

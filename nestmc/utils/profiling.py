@@ -3,8 +3,8 @@
 - ``trace(dir)``: context manager over jax.profiler (TensorBoard/Perfetto
   trace) — the CLI exposes it as ``--profile DIR``.
 - ``sweep_cost(model, data, cfg)``: XLA's own cost model for one compiled
-  sweep (FLOPs, bytes accessed) + a speed-of-light estimate, for checking
-  how far the hot loop is from roofline.
+  sweep (FLOPs, bytes accessed) + a memory-bound speed-of-light estimate
+  where the device's peak bandwidth is known (utils/device.py PEAKS).
 """
 
 from __future__ import annotations
@@ -64,8 +64,12 @@ def sweep_cost(model, data, cfg, chains: int | None = None) -> dict:
         "flops_per_sweep_per_chain": flops / max(cfg.run.chains, 1),
         "arithmetic_intensity": flops / by if by else None,
     }
-    # v5e roofline anchors: ~197 TFLOP/s bf16 (about half that f32 via MXU),
-    # ~819 GB/s HBM. Report the bandwidth-bound speed-of-light sweeps/sec.
-    if by:
-        out["sol_sweeps_per_sec_hbm"] = 819e9 / by
+    # bandwidth-bound speed of light, only for a device whose published
+    # peak is known; any other device gets None, not an assumed rate
+    from nestmc.utils.device import hbm_peak
+
+    kind = jax.devices()[0].device_kind
+    peak = hbm_peak(kind)
+    out["device_kind"] = kind
+    out["sol_sweeps_per_sec_hbm"] = peak / by if (peak and by) else None
     return out

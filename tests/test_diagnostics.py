@@ -12,7 +12,7 @@ from nestmc.diagnostics import (
     rhat,
     split_rhat,
 )
-from tests.reference_diagnostics import np_ess, np_split_rhat
+from reference_diagnostics import np_ess, np_split_rhat
 
 RNG = np.random.default_rng(7)
 
@@ -80,7 +80,7 @@ def test_ess_tail_iid_near_total():
 
 
 def test_ess_tail_matches_numpy_golden():
-    from tests.reference_diagnostics import np_ess_tail
+    from reference_diagnostics import np_ess_tail
 
     x = ar1(0.6, C=4, D=800)
     ours = float(ess_tail(x))
@@ -90,7 +90,7 @@ def test_ess_tail_matches_numpy_golden():
 
 def test_rank_normalize_matches_scipy():
     from nestmc.diagnostics import _rank_normalize
-    from tests.reference_diagnostics import np_rank_normalize
+    from reference_diagnostics import np_rank_normalize
 
     # continuous draws and a heavily tied integer-valued array
     for x in (
@@ -220,7 +220,7 @@ def test_diagnose_chunked_matches_direct():
 def test_rank_offset_stays_inside_unit_interval_at_huge_n():
     """Regression: at n > ~1.2e7 pooled draws the Blom offset for the top
     rank rounds to exactly 1.0 in f32 and ndtri(1.0)=inf poisoned every
-    diagnostic with NaN (observed at 3072 chains x 4096 draws on TPU)."""
+    diagnostic with NaN (observed at 3072 chains x 4096 draws)."""
     from jax.scipy.special import ndtri
 
     from nestmc.diagnostics import _rank_to_u

@@ -161,15 +161,13 @@ def test_full_rhat_uncollected_block(es):
 ])
 def test_full_rhat_fold_path_matches_split_rhat(algorithm, rthin):
     """The in-sweep fold path (kernel-layout accumulators updated one draw
-    late + final flush; VERDICT r3 item 5) must produce EXACTLY the split
-    R-hat of the retained draws. hier_logistic declares fold-capable
-    fused hooks, so gibbs.rhat_fold_names engages the path; off-TPU the
-    fold runs the jnp reference through the same engine plumbing. At
+    late + final flush) must produce EXACTLY the split R-hat of the
+    retained draws. hier_logistic's beta runs a gradient kernel off a
+    carried cache, so gibbs.rhat_fold_names engages the path. At
     full_rhat_thin > 1 the fold is DISABLED (rhat_fold_names returns ():
-    the cond-gated per-sweep fold measured slower than the thinned
-    post-sweep jnp update at config-5 scale, 55.8k vs 67.0k ESS/s/chip)
-    and the streamed statistic must still match split R-hat of the
-    thinned retained draws via the jnp path."""
+    a cond-gated per-sweep fold would re-materialize the accumulators
+    every sweep) and the streamed statistic must still match split R-hat
+    of the thinned retained draws via the post-sweep path."""
     import jax
 
     from nestmc import SamplerConfig as SC
@@ -181,7 +179,7 @@ def test_full_rhat_fold_path_matches_split_rhat(algorithm, rthin):
     data, _ = synth_logistic(jax.random.key(3), G=12, n=8, p=2)
     model = make_hier_logistic(data, tau_prior="invgamma")
     cfg = SC(
-        kernel=KernelConfig(algorithm=algorithm, fused_accept=True),
+        kernel=KernelConfig(algorithm=algorithm),
         run=RunConfig(
             chains=4, warmup=20, draws=50, segment_size=17, seed=9,
             log_every_segment=False, full_rhat=True,
@@ -200,27 +198,22 @@ def test_full_rhat_fold_path_matches_split_rhat(algorithm, rthin):
         )
 
 
-@pytest.mark.skipif(
-    not (jax.default_backend() == "tpu"
-         and __import__("os").environ.get("NESTMC_TPU_TESTS") == "1"),
-    reason="in-kernel fold path needs a real TPU (NESTMC_TPU_TESTS=1)",
-)
+@pytest.mark.gpu
 @pytest.mark.parametrize("algorithm", ["mala", "newton"])
-def test_full_rhat_fold_in_kernel_matches_split_rhat_tpu(algorithm):
-    """On TPU the fused step kernels fold the Welford update in-kernel
-    (ops/pallas/{mala,newton}_accept.py fold=True); the finalized
-    full-R-hat must still equal split_rhat of the retained draws."""
-    import jax as _jax
-
+def test_full_rhat_fold_on_gpu_matches_split_rhat(algorithm):
+    """On the GPU the obs pass runs the Triton kernel and the fold runs
+    inside the compiled sweep; the finalized full-R-hat must still equal
+    split_rhat of the retained draws."""
     from nestmc import SamplerConfig as SC
     from nestmc.config import KernelConfig
     from nestmc.diagnostics import split_rhat
     from nestmc.models import make_hier_logistic, synth_logistic
 
-    data, _ = synth_logistic(_jax.random.key(3), G=16, n=8, p=2)
+    data, _ = synth_logistic(jax.random.key(3), G=16, n=8, p=2)
     model = make_hier_logistic(data, tau_prior="invgamma")
+    assert model.loglik_impls["selected"] == "triton"
     cfg = SC(
-        kernel=KernelConfig(algorithm=algorithm, fused_accept=True),
+        kernel=KernelConfig(algorithm=algorithm),
         run=RunConfig(
             chains=8, warmup=30, draws=64, segment_size=40, seed=9,
             log_every_segment=False, full_rhat=True,
@@ -233,6 +226,34 @@ def test_full_rhat_fold_in_kernel_matches_split_rhat_tpu(algorithm):
         np.testing.assert_allclose(
             np.asarray(streamed), np.asarray(direct), rtol=2e-4, atol=2e-4
         )
+
+
+@pytest.mark.parametrize("case", [
+    ("nested_poisson", "mala", 1, ("beta_s",)),
+    ("nested_poisson", "rwmh", 1, ()),
+    ("nested_poisson", "newton", 2, ()),
+    ("eight_schools", "mala", 1, ()),
+])
+def test_rhat_fold_names_follow_the_gradient_blocks(case):
+    """The in-sweep fold covers the non-Gibbs blocks that run a gradient
+    kernel off a carried cache, at full_rhat_thin == 1 only."""
+    from nestmc import SamplerConfig as SC
+    from nestmc.config import KernelConfig
+    from nestmc.kernels.gibbs import rhat_fold_names
+    from nestmc.models import make_nested_poisson, synth_poisson3
+
+    name, algorithm, rthin, expected = case
+    if name == "nested_poisson":
+        data, _ = synth_poisson3(jax.random.key(0), G=3,
+                                 subjects_per_group=2, n=4, p=2)
+        model = make_nested_poisson(data, tau_prior="invgamma")
+    else:
+        model, _ = make_eight_schools()
+    cfg = SC(
+        kernel=KernelConfig(algorithm=algorithm),
+        run=RunConfig(full_rhat=True, full_rhat_thin=rthin),
+    )
+    assert rhat_fold_names(model, cfg) == expected
 
 
 def test_log_rhat_flag_runs(es, caplog):

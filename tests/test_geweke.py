@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from nestmc.config import KernelConfig, RunConfig, SamplerConfig
 from nestmc.kernels.gibbs import make_sweep
 from nestmc.kernels.state import init_kernel_state
-from tests.calibration_model import (
+from calibration_model import (
     make_broken_model,
     make_calibration_model,
     sample_y,

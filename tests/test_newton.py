@@ -115,23 +115,22 @@ def test_segment_vgh_matches_padded():
 
 
 def test_pallas_vgh_parity_interpret():
-    from nestmc.ops.pallas.loglik_logistic import (
-        logistic_logp_grad_hess_pallas,
-    )
+    from nestmc.ops.loglik_triton import fused_loglik
 
     beta, x, y, mask = _toy(C=16, G=11, n=7, p=4, seed=9)
     mask = mask.at[3, :].set(0.0)  # an all-padded group row
     v0, g0, h0 = logistic_logp_grad_hess_padded(beta, x, y, mask)
-    v1, g1, h1 = logistic_logp_grad_hess_pallas(
-        beta, x, y, mask, interpret=True
+    v1, g1, h1 = fused_loglik(
+        beta, x, y, mask, family="logistic", outputs="vgh", interpret=True
     )
     np.testing.assert_allclose(np.asarray(v0), np.asarray(v1), atol=1e-5)
     np.testing.assert_allclose(np.asarray(g0), np.asarray(g1), atol=1e-5)
     np.testing.assert_allclose(np.asarray(h0), np.asarray(h1), atol=1e-5)
     dense = jnp.ones_like(mask)
     v0, g0, h0 = logistic_logp_grad_hess_padded(beta, x, y, dense)
-    v1, g1, h1 = logistic_logp_grad_hess_pallas(
-        beta, x, y, dense, interpret=True, dense=True
+    v1, g1, h1 = fused_loglik(
+        beta, x, y, dense, family="logistic", outputs="vgh", dense=True,
+        interpret=True,
     )
     np.testing.assert_allclose(np.asarray(v0), np.asarray(v1), atol=1e-5)
     np.testing.assert_allclose(np.asarray(g0), np.asarray(g1), atol=1e-5)
@@ -139,10 +138,8 @@ def test_pallas_vgh_parity_interpret():
 
 
 def test_pallas_poisson_vgh_parity_interpret():
-    from nestmc.ops.pallas.loglik_poisson import (
-        poisson_logp_grad_hess_pallas,
-    )
     from nestmc.ops.loglik import poisson_logp_grad_hess_padded
+    from nestmc.ops.loglik_triton import fused_loglik
 
     beta, x, _, mask = _toy(C=16, G=11, n=7, p=3, seed=13)
     beta = 0.3 * beta
@@ -152,8 +149,8 @@ def test_pallas_poisson_vgh_parity_interpret():
     )))
     mask = mask.at[5, :].set(0.0)  # an all-padded group row
     v0, g0, h0 = poisson_logp_grad_hess_padded(beta, x, y, mask)
-    v1, g1, h1 = poisson_logp_grad_hess_pallas(
-        beta, x, y, mask, interpret=True
+    v1, g1, h1 = fused_loglik(
+        beta, x, y, mask, family="poisson", outputs="vgh", interpret=True
     )
     np.testing.assert_allclose(np.asarray(v0), np.asarray(v1), atol=1e-4)
     np.testing.assert_allclose(np.asarray(g0), np.asarray(g1), atol=1e-4)

@@ -1,10 +1,9 @@
-"""Parity contract for the fused segment (ragged) kernels.
+"""Parity contract for the ragged (segment) obs passes.
 
 - jnp memory-lean logp+grad (ops/loglik.py::logistic_logp_grad_segment)
-  vs jax.vjp of the reference segment path — exact formulation check.
-- Pallas tiled-CSR kernels (ops/pallas/loglik_segment.py, interpret mode
-  off-TPU) vs the jnp reference, across ragged shapes that exercise
-  empty groups, empty tiles, multi-chunk tiles and non-divisible G.
+  vs jax.vjp of the reference segment path — exact formulation check,
+  across ragged shapes with empty groups and non-divisible G.
+- hier_logistic's ragged implementations agree at the model level.
 """
 
 import numpy as np
@@ -16,11 +15,6 @@ import jax.numpy as jnp
 from nestmc.ops.loglik import (
     logistic_logp_grad_segment,
     logistic_loglik_segment,
-)
-from nestmc.ops.pallas.loglik_segment import (
-    TiledSegmentLayout,
-    logistic_loglik_segment_pallas,
-    logistic_logp_grad_segment_pallas,
 )
 
 
@@ -63,55 +57,7 @@ def test_jnp_lean_grad_matches_vjp(case):
                                rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_pallas_segment_loglik_parity(case):
-    C, G, p, max_n, min_n, empty_every, TG, TN = case
-    beta, x, y, seg = _ragged(jax.random.key(2), C, G, p, max_n,
-                              min_n, empty_every)
-    layout = TiledSegmentLayout.build(np.asarray(seg), G,
-                                      tile_groups=TG, chunk_obs=TN)
-    got = logistic_loglik_segment_pallas(beta, x, y, layout)
-    ref = logistic_loglik_segment(beta, x, y, seg, G)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-5, atol=2e-5)
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_pallas_segment_logp_grad_parity(case):
-    C, G, p, max_n, min_n, empty_every, TG, TN = case
-    beta, x, y, seg = _ragged(jax.random.key(3), C, G, p, max_n,
-                              min_n, empty_every)
-    layout = TiledSegmentLayout.build(np.asarray(seg), G,
-                                      tile_groups=TG, chunk_obs=TN)
-    ll, g = logistic_logp_grad_segment_pallas(beta, x, y, layout)
-    ll_ref, g_ref = logistic_logp_grad_segment(beta, x, y, seg, G)
-    np.testing.assert_allclose(np.asarray(ll), np.asarray(ll_ref),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref),
-                               rtol=2e-4, atol=2e-5)
-
-
-def test_layout_rejects_unsorted():
-    with pytest.raises(ValueError):
-        TiledSegmentLayout.build(np.array([1, 0, 2]), 3)
-
-
-def test_layout_covers_every_tile():
-    """Every tile owns at least one chunk (empty tiles included) so every
-    output block is zero-initialized."""
-    seg = np.repeat(np.arange(5, dtype=np.int32), [4, 0, 0, 0, 7])
-    lay = TiledSegmentLayout.build(seg, 40, tile_groups=8, chunk_obs=4)
-    assert lay.num_tiles == 5
-    tiles_seen = set(np.asarray(lay.chunk_tile).tolist())
-    assert tiles_seen == set(range(5))
-    firsts = np.asarray(lay.chunk_first)
-    tiles = np.asarray(lay.chunk_tile)
-    for t in range(5):
-        assert firsts[tiles == t][0] == 1
-        assert firsts[tiles == t][1:].sum() == 0
-
-
-@pytest.mark.parametrize("impl", ["pallas-segment", "bucket"])
+@pytest.mark.parametrize("impl", ["bucket"])
 def test_hier_logistic_ragged_model_wiring(impl):
     """Model-level contract: hier_logistic built with each ragged impl
     produces the same carried likelihood and fused value+grad as the

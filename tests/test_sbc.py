@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from nestmc.config import RunConfig, SamplerConfig
 from nestmc.engine import sample
-from tests.calibration_model import make_calibration_model, sample_y
+from calibration_model import make_calibration_model, sample_y
 
 G, N = 4, 3
 C = 512       # replicas
